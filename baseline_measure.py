@@ -4,18 +4,18 @@ The reference publishes no absolute numbers (BASELINE.md), so this script
 times the reference's own pipeline — composed exclusively from reference
 functions loaded in place from /root/reference (see
 tests/reference_oracle/refchain.py) — on the same workloads bench.py
-measures on TPU:
+measures on the accelerator:
 
 - config2_canyon: street-canyon geometry, order-2 exhaustive candidates,
   64x64 RX power map  -> paths/s and px/s.
 - cityscale_bruxelles: bruxelles.obj (14.2k triangles, the reference's
-  own "medium" benchmark scene), shape-matched to the TPU headline
+  own "medium" benchmark scene), shape-matched to the accelerator headline
   (262 144 order-2 candidates x 128 RX in 4 096-candidate chunks): a
   subsample of identically-shaped chunks is timed and extrapolated
   linearly over the chunk count -> paths/s.
 
 Results land in BASELINE_MEASURED.json (checked in); bench.py divides
-its TPU throughput by these to report an honest repo-on-TPU vs
+its accelerator throughput by these to report an honest repo-on-accelerator vs
 DiffeRT-on-CPU `vs_baseline`.
 
 Run:  python baseline_measure.py        (forces the CPU backend itself)
@@ -114,12 +114,12 @@ def bench_config2(ref):
 
 
 def bench_cityscale(ref):
-    """Shape-matched to bench.py's TPU headline (262 144 cand x 128 RX).
+    """Shape-matched to bench.py's accelerator headline (262 144 cand x 128 RX).
 
     The FULL workload would take the reference ~4-5 h on CPU, so the
     measurement times a subsample of IDENTICALLY-SHAPED chunks and
     extrapolates linearly: every chunk is the exact (4096 candidates x
-    128 RX) tile the TPU pipeline streams, the candidate decode is the
+    128 RX) tile the device pipeline streams, the candidate decode is the
     same closed-form index shard, and the per-chunk work is shape-for-
     shape what bench.py times — only the chunk COUNT is scaled down.
     """

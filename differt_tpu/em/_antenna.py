@@ -12,7 +12,7 @@ from typing import Any
 from differt_tpu import treekit as eqx
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float, Inexact
+from .._typing import Array, ArrayLike, Float, Inexact
 
 from ..geometry._vectors import (
     cartesian_to_spherical,

@@ -7,7 +7,7 @@ internal reflection and lossy (complex-permittivity) media uniformly.
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Complex, Float, Inexact
+from .._typing import Array, ArrayLike, Complex, Float, Inexact
 
 from ..utils import safe_divide
 

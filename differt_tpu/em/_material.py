@@ -14,7 +14,7 @@ from typing import TYPE_CHECKING, Any
 
 from differt_tpu import treekit as eqx
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float
+from .._typing import Array, ArrayLike, Float
 
 if TYPE_CHECKING or hasattr(typing, "GENERATING_DOCS"):
     from typing import Self

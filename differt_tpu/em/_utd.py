@@ -15,7 +15,7 @@ from typing import Literal
 import jax
 import jax.numpy as jnp
 import jax.scipy.special as jsp
-from jaxtyping import Array, ArrayLike, Complex, Float
+from .._typing import Array, ArrayLike, Complex, Float
 
 
 @jax.jit

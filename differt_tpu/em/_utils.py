@@ -12,7 +12,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Complex, Float, Int
+from .._typing import Array, ArrayLike, Complex, Float, Int
 
 from ..geometry._vectors import normalize, path_length, perpendicular_vector
 from ._constants import c
@@ -88,7 +88,9 @@ def sp_rotation_matrix(
     # XLA lowers to a small batched matmul).
     basis_a = jnp.stack(jnp.broadcast_arrays(e_a_s, e_a_p), axis=-2)
     basis_b = jnp.stack(jnp.broadcast_arrays(e_b_s, e_b_p), axis=-2)
-    return jnp.einsum("...ik,...jk->...ij", basis_b, basis_a)
+    return jnp.einsum(
+        "...ik,...jk->...ij", basis_b, basis_a, precision=jax.lax.Precision.HIGHEST
+    )
 
 
 @jax.jit
@@ -132,10 +134,8 @@ def transition_apply(
 
     Same physics as :func:`transition_matrix`, but the (theta, phi) field
     components are carried as two scalar arrays and every 2x2 product is
-    expanded element-wise. On TPU this matters a lot: arrays with trailing
-    ``[..., 2, 2]`` dims are tiled to (2, 128) lanes — a 64x memory
-    expansion that OOMs large coverage batches — whereas this formulation
-    keeps every array at the batch shape.
+    expanded element-wise, so every array keeps the batch shape instead of
+    carrying trailing ``[..., 2, 2]`` dims.
     """
     vertices = jnp.asarray(vertices)
     object_normals = jnp.asarray(object_normals)
@@ -272,7 +272,11 @@ def transition_matrix(
         (jnp.stack((r_s, zero), axis=-1), jnp.stack((zero, r_p), axis=-1)),
         axis=-2,
     )
-    j_mat = jnp.matmul(out_rot.astype(cdtype), jnp.matmul(d, in_rot.astype(cdtype)))
+    j_mat = jnp.matmul(
+        out_rot.astype(cdtype),
+        jnp.matmul(d, in_rot.astype(cdtype), precision=jax.lax.Precision.HIGHEST),
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
     if interaction_types is not None:
         interaction_types = jnp.asarray(interaction_types)
@@ -280,7 +284,7 @@ def transition_matrix(
         j_mat = jnp.where(is_reflection, j_mat, jnp.eye(2, dtype=cdtype))
 
     def chain(acc: Array, idx: int) -> Array:
-        return jnp.matmul(j_mat[..., idx, :, :], acc)
+        return jnp.matmul(j_mat[..., idx, :, :], acc, precision=jax.lax.Precision.HIGHEST)
 
     total = eye
     for idx in range(order):

@@ -1,4 +1,4 @@
-"""On-device path-candidate enumeration (TPU-native design).
+"""On-device path-candidate enumeration.
 
 The reference enumerates path candidates with a host-side Rust iterator
 (differt-core/src/geometry/graph.rs:286-527), materializing
@@ -26,7 +26,7 @@ from typing import TypeVar
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, Int
+from .._typing import Array, Int
 
 _T = TypeVar("_T")
 

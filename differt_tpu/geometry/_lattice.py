@@ -9,7 +9,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, DTypeLike, Float
+from .._typing import Array, ArrayLike, Bool, DTypeLike, Float
 
 from ._vectors import cartesian_to_spherical, spherical_to_cartesian
 

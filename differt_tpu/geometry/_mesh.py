@@ -3,9 +3,9 @@
 Reference parity: ``differt.geometry.Mesh``
 (differt/src/differt/geometry/_mesh.py:612-3254). Unlike the reference,
 whose accelerated ray-cast methods bridge into NVIDIA Warp CUDA kernels via
-host callbacks (and are unsupported on TPU), every accelerated method here
-runs natively on device: Pallas TPU kernels when available, with the
-pure-JAX tiled kernels of :mod:`differt_tpu.rt` as a portable fallback.
+host callbacks, every accelerated method here runs natively on device:
+Pallas kernels on a GPU, with the pure-JAX tiled kernels of
+:mod:`differt_tpu.rt` as the portable backend.
 """
 
 import warnings
@@ -16,7 +16,7 @@ from typing import Any
 from differt_tpu import treekit as eqx
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float, Int, PRNGKeyArray
+from .._typing import Array, ArrayLike, Bool, Float, Int, PRNGKeyArray
 
 from ._vectors import normalize, orthogonal_basis, rotation_matrix_along_axis
 
@@ -46,7 +46,7 @@ class _VertexSelection:
     positions), so vertices shared between selected triangles receive
     exactly one update — required for accumulating updates like ``add`` to
     be well defined — without the sorted ``jnp.unique`` the reference
-    relies on (_mesh.py:447-451), which XLA lowers poorly on TPU.
+    relies on (_mesh.py:447-451), whose sort XLA cannot avoid.
     """
 
     __slots__ = ("_mesh", "_selection")
@@ -342,7 +342,9 @@ class Mesh(eqx.Module):
         """Rotate all vertices by the given 3x3 matrix."""
         rotation_matrix = jnp.asarray(rotation_matrix)
         return eqx.tree_at(
-            lambda m: m.vertices, self, (rotation_matrix @ self.vertices.T).T
+            lambda m: m.vertices,
+            self,
+            jnp.matmul(rotation_matrix, self.vertices.T, precision=jax.lax.Precision.HIGHEST).T,
         )
 
     def scale(self, scale_factor: Float[ArrayLike, ""]) -> "Mesh":
@@ -411,7 +413,9 @@ class Mesh(eqx.Module):
         s = 0.5 * side_length
         vertices = s * jnp.stack((u + v, v - u, -u - v, u - v))
         if rotate is not None:
-            vertices = (rotation_matrix_along_axis(rotate, normal) @ vertices.T).T
+            vertices = jnp.matmul(
+                rotation_matrix_along_axis(rotate, normal), vertices.T, precision=jax.lax.Precision.HIGHEST
+            ).T
         vertices = vertices + vertex_a
         triangles = jnp.array([[0, 1, 2], [0, 2, 3]], dtype=jnp.int32)
         return cls(
@@ -862,14 +866,8 @@ class Mesh(eqx.Module):
         # _mesh.py:1047-1057 warns through jax.debug.callback so the check
         # stays jit-compatible). Edges shared by >2 faces are silently
         # excluded from diffraction, which is easy to misread as "no edges
-        # found" without this warning. Skipped on backends whose PJRT
-        # plugin cannot run host callbacks.
-        from differt_tpu.utils import supports_debug_callback
-
-        if supports_debug_callback():
-            jax.debug.callback(
-                _warn_non_manifold_edges, jnp.sum(group_counts > 2)
-            )
+        # found" without this warning.
+        jax.debug.callback(_warn_non_manifold_edges, jnp.sum(group_counts > 2))
 
         partner_sorted = jnp.where(
             same_as_prev, jnp.arange(n_half) - 1, jnp.arange(n_half) + 1
@@ -1046,8 +1044,8 @@ class Mesh(eqx.Module):
     ) -> Bool[Array, " *batch"]:
         """Occlusion test against all (active) mesh triangles.
 
-        TPU-native: dispatches to the Pallas any-hit kernel when available,
-        else the pure-JAX tiled scan. Replaces the reference's Warp BVH
+        Dispatches to the Pallas any-hit kernel on a GPU, else the pure-JAX
+        tiled scan. Replaces the reference's Warp BVH
         callback (_mesh.py:3018-3094).
         """
         from ..ops import dispatch_ray_intersect_any_triangle

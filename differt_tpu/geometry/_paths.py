@@ -6,7 +6,7 @@ full, fixed batch shapes plus a validity mask (boolean or float confidence),
 the JIT- and sharding-stable representation: invalid paths are masked, never
 dropped, so every chip holds identical shapes.
 
-Implementation notes (TPU-first, not a port):
+Implementation notes (device-first, not a port):
 
 - Batch-shape surgery (``reshape`` / ``squeeze`` / ``masked``) is driven by a
   single per-class table of *trailing* (non-batch) ranks and one generic
@@ -16,7 +16,7 @@ Implementation notes (TPU-first, not a port):
   :meth:`TracedPaths.multipath_cells`, duplicate masking) is built on
   :func:`_group_index`, a tiled first-occurrence search: each tile of query
   rows is compared against the whole row set with one dense vectorized
-  equality + ``argmax``. On TPU this keeps the VPU busy with wide lane-wise
+  equality + ``argmax``. This keeps the device busy with wide elementwise
   compares instead of a sequential scan, while ``lax.map`` over tiles bounds
   the working set.
 """
@@ -26,12 +26,12 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float, Int, Num, Shaped
+from .._typing import Array, ArrayLike, Bool, Float, Int, Num, Shaped
 
 from differt_tpu import treekit as eqx
 
 # Queries per tile in _group_index: bounds the [tile, num_rows, n] equality
-# buffer while keeping each compare wide enough to fill TPU vector lanes.
+# buffer while keeping each compare wide enough to fill the device.
 _GROUP_TILE = 128
 
 
@@ -310,7 +310,7 @@ class TracedPaths(eqx.Module):
         every departure/arrival/reflection frame are unchanged. Padded slots
         carry object index -1 and interaction type -1, which the EM pipeline
         treats as pass-through no-ops. This is the ragged-to-static bridge
-        that lets multi-order traces share one container on TPU.
+        that lets multi-order traces share one container on device.
 
         Raises:
             ValueError: If ``target_order`` is below the current order.
@@ -377,7 +377,7 @@ def concatenate_paths(batches: Sequence[TracedPaths]) -> TracedPaths:
 
     Batches of different orders are first padded to the highest order via
     :meth:`TracedPaths.pad_order`, so e.g. a multi-order trace merges into
-    ONE static-shape container — the TPU answer to the reference's
+    ONE static-shape container — the static-shape answer to the reference's
     one-``TracedPaths``-per-order iterator (its solvers raise on multi-order
     input, reference _scene.py:704-708). All other batch axes must agree.
 

@@ -12,8 +12,9 @@ from os import PathLike
 from typing import TYPE_CHECKING, Any, Literal
 
 from differt_tpu import treekit as eqx
+import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float, Int
+from .._typing import Array, ArrayLike, Float, Int
 
 from ._mesh import Mesh
 
@@ -131,12 +132,12 @@ class Scene(eqx.Module):
             lambda s: (s.transmitters, s.receivers, s.mesh),
             self,
             (
-                (rotation_matrix @ self.transmitters.reshape(-1, 3).T).T.reshape(
-                    self.transmitters.shape
-                ),
-                (rotation_matrix @ self.receivers.reshape(-1, 3).T).T.reshape(
-                    self.receivers.shape
-                ),
+                jnp.matmul(
+                    rotation_matrix, self.transmitters.reshape(-1, 3).T, precision=jax.lax.Precision.HIGHEST
+                ).T.reshape(self.transmitters.shape),
+                jnp.matmul(
+                    rotation_matrix, self.receivers.reshape(-1, 3).T, precision=jax.lax.Precision.HIGHEST
+                ).T.reshape(self.receivers.shape),
                 self.mesh.rotate(rotation_matrix),
             ),
         )
@@ -192,7 +193,7 @@ class Scene(eqx.Module):
 
         Feature parity: reference ``Scene.trace_paths`` (_scene.py:650-764) —
         solver shortcuts, chunked iteration, and a user-supplied
-        ``path_candidates`` bypass. Fully TPU-native (no Warp).
+        ``path_candidates`` bypass. Fully on device (no Warp).
 
         A sequence of orders yields one :class:`TracedPaths` per order (the
         reference raises ``NotImplementedError`` for this, _scene.py:704-708);

@@ -10,7 +10,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float, Int
+from .._typing import Array, ArrayLike, Float, Int
 
 
 @partial(jax.jit, static_argnames=("keepdims",))

@@ -2,7 +2,7 @@
 //
 // These replace the reference's Rust `differt-core` crate
 // (differt-core/src/geometry/{graph,mesh}.rs) for the two jobs that stay on
-// the host in the TPU-native design:
+// the host in this design:
 //
 // 1. Filtered path-candidate enumeration (visibility-pruned DiGraph DFS):
 //    the *unfiltered* complete-graph case is decoded on device from a

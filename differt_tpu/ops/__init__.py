@@ -1,13 +1,13 @@
-"""Accelerated ray-casting ops with TPU (Pallas) / generic (XLA) dispatch.
+"""Accelerated ray-casting ops with Pallas (GPU) / plain-JAX dispatch.
 
-This package replaces the reference's NVIDIA Warp CUDA kernel stack
+This package replaces the reference's NVIDIA Warp kernel stack
 (differt/src/differt/geometry/_mesh.py:142-401, bridged via host callbacks).
 Here both backends run natively inside XLA:
 
-- ``pallas``: fused Pallas TPU kernels tiling triangles through VMEM
-  (:mod:`differt_tpu.ops._pallas_rt`).
-- ``jax``: the portable tiled ``fori_loop`` kernels of
-  :mod:`differt_tpu.rt` (also the correctness oracles).
+- ``pallas``: culled any-hit and closest-hit kernels written in Pallas and
+  compiled for the GPU through Triton (:mod:`differt_tpu.ops._pallas_rt`).
+- ``jax``: the portable tiled scans of :mod:`differt_tpu.rt` (also the
+  correctness references).
 
 The closest-hit query is made differentiable with a custom VJP that
 re-derives the hit distance from the frozen hit indices (the

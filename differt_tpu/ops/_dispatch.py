@@ -2,9 +2,14 @@
 
 Backends:
 
-- ``"pallas"``: fused Pallas TPU kernels (used automatically on TPU).
-- ``"jax"``: portable pure-JAX tiled kernels (:mod:`differt_tpu.rt`).
-- ``"auto"`` (default): pick per platform.
+- ``"pallas"``: the culled Pallas kernels of :mod:`differt_tpu.ops._pallas_rt`,
+  compiled for an NVIDIA GPU through Triton.
+- ``"jax"``: the portable plain-JAX scans of :mod:`differt_tpu.rt`.
+- ``"auto"`` (default): ``"pallas"`` on a GPU, ``"jax"`` elsewhere.
+
+The kernels run in the Pallas interpreter only when asked for it
+(``set_backend("pallas", interpret=True)``, as the tests do); asking for
+them compiled on a device they cannot compile for raises.
 
 The mesh-level methods keep the exact numerical contract of the reference's
 Warp-backed methods (_mesh.py:3018-3253): any-hit offsets the ray origin by
@@ -19,8 +24,8 @@ from typing import TYPE_CHECKING, Any
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, Bool, Float, Int
 
+from .._typing import Array, Bool, Float, Int
 from ..rt._scan import (
     first_triangle_hit_by_ray as _jax_first_hit,
     ray_intersect_any_triangle as _jax_anyhit,
@@ -30,30 +35,41 @@ if TYPE_CHECKING:
     from ..geometry._mesh import Mesh
 
 _BACKEND: str = "auto"
+_INTERPRET: bool = False
 
 
-def set_backend(backend: str) -> None:
+def set_backend(backend: str, *, interpret: bool = False) -> None:
     """Set the global ray-casting backend: 'auto', 'pallas', or 'jax'.
+
+    ``interpret=True`` runs the Pallas kernels in the interpreter (on any
+    device, slowly); it is the only way to run them off a GPU.
+
+    The backend is chosen while a function is traced, so a change drops
+    every compiled program (``jax.clear_caches``) rather than let a cached
+    one keep the old choice.
 
     Examples:
         >>> from differt_tpu.ops import get_backend, set_backend
         >>> set_backend("jax")
         >>> get_backend()
         'jax'
-        >>> set_backend("auto")  # 'pallas' on TPU, 'jax' elsewhere
+        >>> set_backend("auto")  # 'pallas' on a GPU, 'jax' elsewhere
     """
     if backend not in ("auto", "pallas", "jax"):
         msg = f"Unknown backend {backend!r}, expected 'auto', 'pallas', or 'jax'."
         raise ValueError(msg)
-    global _BACKEND
+    global _BACKEND, _INTERPRET
+    if (backend, interpret) != (_BACKEND, _INTERPRET):
+        jax.clear_caches()
     _BACKEND = backend
+    _INTERPRET = interpret
 
 
 def get_backend() -> str:
     """Resolve the active backend name ('pallas' or 'jax')."""
     if _BACKEND != "auto":
         return _BACKEND
-    return "pallas" if jax.default_backend() == "tpu" else "jax"
+    return "pallas" if jax.default_backend() == "gpu" else "jax"
 
 
 def _anyhit_backend(
@@ -80,6 +96,7 @@ def _anyhit_backend(
             active_triangles,
             hit_threshold=hit_threshold,
             epsilon=epsilon,
+            interpret=_INTERPRET,
         )
     out = _jax_anyhit(
         ray_origins,
@@ -104,7 +121,11 @@ def _closest_hit_backend(
         from ._pallas_rt import pallas_first_triangle_hit_by_ray
 
         return pallas_first_triangle_hit_by_ray(
-            ray_origins, ray_directions, triangle_vertices, active_triangles
+            ray_origins,
+            ray_directions,
+            triangle_vertices,
+            active_triangles,
+            interpret=_INTERPRET,
         )
     return _jax_first_hit(
         ray_origins, ray_directions, triangle_vertices, active_triangles

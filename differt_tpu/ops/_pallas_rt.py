@@ -1,361 +1,278 @@
-"""Fused Pallas TPU kernels for brute-force ray casting.
+"""Culled any-hit and closest-hit ray casting as Pallas kernels (Triton route).
 
-Replaces the reference's Warp CUDA BVH kernels (_mesh.py:142-401) with a
-TPU-first design: instead of a pointer-chasing BVH (hostile to the TPU's
-vector units), rays and triangles are tiled into VMEM and every ray-triangle
-pair in a (ray_tile x tri_tile) block is tested with a fully vectorized
-Moeller-Trumbore evaluation on the VPU. The grid walks triangle tiles
-innermost so per-ray accumulators (any-hit flags, running closest hit) stay
-resident in VMEM across the whole sweep — zero HBM traffic for
-intermediates, one pass over the mesh per ray tile.
+The reference casts rays through a Warp BVH (_mesh.py:142-401). Here the
+mesh is Morton-sorted instead, so that every chunk of ``t_sub`` consecutive
+triangles is spatially compact, and each chunk (and each tile of
+``chunks_per_tile`` chunks) gets an axis-aligned bounding box. One program
+owns a block of ``block_r`` rays and walks the boxes in a loop: a box is
+opened only if some still-pending ray of the block reaches it, and only
+then are its triangles tested, all ``t_sub x block_r`` pairs at once.
 
-Layout: coordinates are stored structure-of-arrays ([3, num_rays] and
-[9, num_triangles]) so the last (lane) dimension is the 128-wide
-ray/triangle axis and every arithmetic op is a dense [TILE_R, TILE_T]
-vector op.
+A ray is pending while its answer can still change. For any-hit, until it
+is blocked; a negative threshold marks a ray whose answer does not matter,
+and such a ray is never pending, so the dead segments of invalid path
+candidates cost nothing. For closest-hit, while its slab interval starts
+before its best hit so far, so geometry behind the first hits is skipped.
 
-On non-TPU backends the same kernels run in interpreter mode (slow but
-exact), which is how the unit tests validate them against the pure-JAX
-oracles in :mod:`differt_tpu.rt`.
+Per-ray state (the blocked flag, or the running ``(t, index)``) lives in
+registers across the loop; no state passes between programs. Coordinates
+are stored structure-of-arrays ([8, rays] and [9, triangles]) so every load
+is a contiguous row. Masked-out and padding triangles have zero edges and
+can never be hit.
+
+The plain-JAX scans of :mod:`differt_tpu.rt` implement the same contracts
+and are the reference these kernels are tested against.
 """
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jaxtyping import Array, Bool, Float, Int
+from jax.experimental.pallas import triton as pl_triton
 
-try:  # pragma: no cover - pltpu only resolves fully on TPU builds.
-    from jax.experimental.pallas import tpu as pltpu
+from .._typing import Array, Bool, Float, Int
+from ..geometry._morton import morton_perm_points
 
-    _HAS_PLTPU = True
-except ImportError:  # pragma: no cover
-    pltpu = None
-    _HAS_PLTPU = False
 
-TILE_R = 1024
-TILE_T = 512
-T_SUB = 64  # Triangle sublane-chunk size inside a tile.
+class KernelConfig(NamedTuple):
+    """Block shape and launch parameters of the ray-casting kernels."""
 
-_NEG = -1.0  # Inactive-triangle marker handled via the active row.
+    block_r: int = 32
+    """Rays per program (a power of two)."""
+    t_sub: int = 8
+    """Triangles per chunk: the unit of box culling and of one MT tile."""
+    chunks_per_tile: int = 64
+    """Chunks per tile: the coarse culling level."""
+    num_warps: int = 1
+    num_stages: int = 1
 
-# Reciprocal clamp for the slab test: |d| below this is treated as +-1e-30,
-# giving huge-but-finite slab distances (no 0*inf NaNs, conservative).
+
+DEFAULT_CONFIG = KernelConfig()
+
+# Slab-test reciprocal clamp: |d| below this is treated as +-1e-30, giving
+# huge-but-finite slab distances (no 0 * inf NaNs, conservative).
 _SLAB_TINY = 1e-30
 
 
-def morton_perm_points(
-    points: Float[Array, "num_points 3"],
-) -> Int[Array, " num_points"]:
-    """Permutation sorting 3D points along a Morton (Z-order) curve.
+def _chunk_boxes(tris: Array, active: Array, t_sub: int) -> Array:
+    """Per-chunk boxes of the ``[9, T]`` v0/e1/e2 layout: ``[8, T // t_sub]``.
 
-    Spatially-adjacent points land next to each other, which makes
-    fixed-size chunks of the sorted order spatially compact — the property
-    the AABB slab-test culling in these kernels relies on.
-
-    >>> import jax.numpy as jnp
-    >>> pts = jnp.array(
-    ...     [[0.0, 0.0, 0.0], [9.0, 9.0, 9.0], [0.1, 0.0, 0.0], [9.0, 8.9, 9.0]]
-    ... )
-    >>> perm = morton_perm_points(pts)
-    >>> sorted_pts = pts[perm]  # near points become neighbors
-    >>> bool(jnp.linalg.norm(sorted_pts[0] - sorted_pts[1]) < 1.0)
-    True
-    >>> bool(jnp.linalg.norm(sorted_pts[2] - sorted_pts[3]) < 1.0)
-    True
-    """
-    centroids = points
-    lo = centroids.min(axis=0)
-    hi = centroids.max(axis=0)
-    extent = jnp.where(hi > lo, hi - lo, 1.0)
-    q = ((centroids - lo) / extent * 1023.0).astype(jnp.uint32).clip(0, 1023)
-
-    def part1by2(x):
-        x = x & jnp.uint32(0x3FF)
-        x = (x | (x << 16)) & jnp.uint32(0x030000FF)
-        x = (x | (x << 8)) & jnp.uint32(0x0300F00F)
-        x = (x | (x << 4)) & jnp.uint32(0x030C30C3)
-        x = (x | (x << 2)) & jnp.uint32(0x09249249)
-        return x
-
-    code = (
-        part1by2(q[:, 0]) | (part1by2(q[:, 1]) << 1) | (part1by2(q[:, 2]) << 2)
-    )
-    return jnp.argsort(code).astype(jnp.int32)
-
-
-def _morton_perm(
-    triangle_vertices: Float[Array, "num_triangles 3 3"],
-) -> Int[Array, " num_triangles"]:
-    """Permutation sorting triangles along a 3D Morton (Z-order) curve.
-
-    Spatially-adjacent triangles land in the same ``T_SUB`` chunk, which
-    makes the per-chunk AABBs tight and the slab-test culling effective.
-    The reference gets the same locality from Warp's BVH build
-    (_mesh.py:142-223); a Morton sort is the TPU-friendly analogue — one
-    device sort at trace time instead of a pointer tree.
-    """
-    return morton_perm_points(triangle_vertices.mean(axis=1))
-
-
-def _chunk_aabbs(tris: Array, active: Array) -> Array:
-    """Per-``T_SUB``-chunk AABBs of the SoA triangle array.
-
-    ``tris`` is the padded ``[9, T]`` v0/e1/e2 layout, ``active`` the padded
-    ``[1, T]`` int mask (0 on padding and masked-out triangles). Returns an
-    ``[8, T // T_SUB]`` float32 array: rows 0-2 min xyz, rows 3-5 max xyz
-    (inflated by a relative margin so grazing rays cannot be culled by
-    rounding), rows 6-7 padding. Chunks with no active triangle get an
-    inverted (empty) box; callers must combine the slab test with an
-    any-active check.
+    Rows 0-2 hold the minimum corner, rows 3-5 the maximum corner, both
+    widened by a margin relative to the scene extent so that rounding can
+    never cull a grazing ray. A chunk without an active triangle gets an
+    inverted box (min 1, max -1), which :func:`_slab` rejects.
     """
     v0 = tris[0:3]
-    v1 = tris[0:3] + tris[3:6]
-    v2 = tris[0:3] + tris[6:9]
-    ok = active[0] > 0  # [T]
-    mn = jnp.minimum(jnp.minimum(v0, v1), v2)  # [3, T]
+    v1 = v0 + tris[3:6]
+    v2 = v0 + tris[6:9]
+    mn = jnp.minimum(jnp.minimum(v0, v1), v2)
     mx = jnp.maximum(jnp.maximum(v0, v1), v2)
-    mn = jnp.where(ok, mn, jnp.inf).reshape(3, -1, T_SUB).min(axis=-1)
-    mx = jnp.where(ok, mx, -jnp.inf).reshape(3, -1, T_SUB).max(axis=-1)
-    extent = jnp.where(jnp.isfinite(mx), mx, -jnp.inf).max() - jnp.where(
-        jnp.isfinite(mn), mn, jnp.inf
-    ).min()
+    mn = jnp.where(active, mn, jnp.inf).reshape(3, -1, t_sub).min(axis=-1)
+    mx = jnp.where(active, mx, -jnp.inf).reshape(3, -1, t_sub).max(axis=-1)
+    empty = ~jnp.isfinite(mn[0])
+    extent = jnp.max(jnp.where(empty, -jnp.inf, mx)) - jnp.min(
+        jnp.where(empty, jnp.inf, mn)
+    )
     margin = 1e-5 * jnp.where(jnp.isfinite(extent), jnp.abs(extent), 0.0) + 1e-12
-    aabb = jnp.concatenate((mn - margin, mx + margin), axis=0)  # [6, chunks]
-    return _pad_to(aabb.astype(jnp.float32), 8, 0, 0.0)
+    mn = jnp.where(empty, 1.0, mn - margin)
+    mx = jnp.where(empty, -1.0, mx + margin)
+    zeros = jnp.zeros((2, mn.shape[1]), mn.dtype)
+    return jnp.concatenate((mn, mx, zeros), axis=0).astype(jnp.float32)
 
 
-def _slab_overlap(o, d, box, t_hi):
-    """Conservative per-lane segment-vs-AABB slab test.
+def _tile_boxes(chunk_boxes: Array, chunks_per_tile: int) -> Array:
+    """Fold chunk boxes into tile boxes: ``[8, num_chunks // chunks_per_tile]``."""
+    mn = chunk_boxes[0:3].reshape(3, -1, chunks_per_tile)
+    mx = chunk_boxes[3:6].reshape(3, -1, chunks_per_tile)
+    empty = mn[0:1] > mx[0:1]
+    mn = jnp.where(empty, jnp.inf, mn).min(axis=-1)
+    mx = jnp.where(empty, -jnp.inf, mx).max(axis=-1)
+    none = ~jnp.isfinite(mn[0])
+    mn = jnp.where(none, 1.0, mn)
+    mx = jnp.where(none, -1.0, mx)
+    zeros = jnp.zeros((2, mn.shape[1]), mn.dtype)
+    return jnp.concatenate((mn, mx, zeros), axis=0)
 
-    ``o``/``d`` are 3-lists of ``[1, R]`` lane vectors, ``box`` a 6-list of
-    scalars (min xyz, max xyz), ``t_hi`` the per-lane upper parameter bound
-    (broadcastable to ``[1, R]``). Never returns a false miss for a ray
-    whose ``[0, t_hi]`` segment touches the box.
+
+def _any(mask: Array) -> Array:
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
+def _slab(o, inv_d, box_ref, g, t_hi):
+    """Conservative segment-vs-box test for every ray of the block.
+
+    ``o``/``inv_d`` are 3-lists of ``[block_r]`` vectors, ``t_hi`` the
+    per-ray upper bound of the parameter. Never a false miss for a ray
+    whose ``[0, t_hi]`` segment touches box ``g``; an inverted box is a miss.
     """
+    lo = [box_ref[c, g] for c in range(3)]
+    hi = [box_ref[3 + c, g] for c in range(3)]
     tnear = jnp.zeros_like(o[0])
-    tfar = jnp.broadcast_to(t_hi, o[0].shape)
+    tfar = t_hi
     for c in range(3):
-        dc = d[c]
-        denom = jnp.where(
+        t1 = (lo[c] - o[c]) * inv_d[c]
+        t2 = (hi[c] - o[c]) * inv_d[c]
+        tnear = jnp.maximum(tnear, jnp.minimum(t1, t2))
+        tfar = jnp.minimum(tfar, jnp.maximum(t1, t2))
+    return (tnear <= tfar) & (lo[0] <= hi[0])
+
+
+def _ray_block(rays_ref):
+    """Origins, directions, slab reciprocals and row 6 of a ray block."""
+    o = [rays_ref[c, :] for c in range(3)]
+    d = [rays_ref[3 + c, :] for c in range(3)]
+    inv_d = [
+        1.0
+        / jnp.where(
             jnp.abs(dc) < _SLAB_TINY,
             jnp.where(dc < 0.0, -_SLAB_TINY, _SLAB_TINY),
             dc,
         )
-        inv = 1.0 / denom
-        t1 = (box[c] - o[c]) * inv
-        t2 = (box[3 + c] - o[c]) * inv
-        tnear = jnp.maximum(tnear, jnp.minimum(t1, t2))
-        tfar = jnp.minimum(tfar, jnp.maximum(t1, t2))
-    return tnear <= tfar
+        for dc in d
+    ]
+    return o, d, inv_d, rays_ref[6, :]
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _moeller_trumbore(o, d, tris_ref, start, t_sub, epsilon):
+    """``(t, hit)`` of a ``[t_sub, block_r]`` triangle-chunk x ray-block tile.
 
-
-def _vmem_spec(block_shape, index_map):
-    if _HAS_PLTPU and not _interpret():
-        return pl.BlockSpec(block_shape, index_map, memory_space=pltpu.VMEM)
-    return pl.BlockSpec(block_shape, index_map)
-
-
-def _mt_chunk(o, d, tris_ref, active_ref, sl, epsilon):
-    """Vectorized Moeller-Trumbore over a [T_SUB, TILE_R] chunk.
-
-    Rays ride the 128-wide lane axis (no relayout from the input block);
-    the triangle chunk rides the sublane axis, so triangle counts pad to a
-    multiple of T_SUB instead of 128 and blocks stay small in VMEM.
-    Returns ``(t, hit)`` where padded/inactive triangles never hit.
+    The same arithmetic, in the same order, as
+    :func:`differt_tpu.rt.ray_intersect_triangle`.
     """
-    # Triangles: [9, TILE_T] -> v0 rows 0..2, e1 rows 3..5, e2 rows 6..8.
-    v0 = [tris_ref[i, sl].reshape(-1, 1) for i in range(3)]
-    e1 = [tris_ref[3 + i, sl].reshape(-1, 1) for i in range(3)]
-    e2 = [tris_ref[6 + i, sl].reshape(-1, 1) for i in range(3)]
-    active = active_ref[0, sl].reshape(-1, 1) > 0
+    rows = [tris_ref[r, pl.ds(start, t_sub)][:, None] for r in range(9)]
+    v0, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
+    o = [x[None, :] for x in o]
+    d = [x[None, :] for x in d]
 
-    # h = d x e2  -> [T_SUB, TILE_R] per component.
     h0 = d[1] * e2[2] - d[2] * e2[1]
     h1 = d[2] * e2[0] - d[0] * e2[2]
     h2 = d[0] * e2[1] - d[1] * e2[0]
-
     det = h0 * e1[0] + h1 * e1[1] + h2 * e1[2]
-    det_ok = jnp.abs(det) > epsilon
-    # Fast reciprocal + one Newton-Raphson step: full f32 accuracy at a
-    # fraction of the VPU divide latency. det == 0 -> inv = 0 (no hit, since
-    # det_ok is false anyway).
-    safe_det = jnp.where(det == 0.0, 1.0, det)
-    if _HAS_PLTPU and not _interpret():
-        r = pl.reciprocal(safe_det, approx=True)
-        r = r * (2.0 - safe_det * r)
-    else:
-        r = 1.0 / safe_det
-    inv = jnp.where(det == 0.0, 0.0, r)
+    inv_det = jnp.where(det == 0.0, 0.0, 1.0 / jnp.where(det == 0.0, 1.0, det))
 
     s0 = o[0] - v0[0]
     s1 = o[1] - v0[1]
     s2 = o[2] - v0[2]
+    u = inv_det * (s0 * h0 + s1 * h1 + s2 * h2)
 
-    u = inv * (s0 * h0 + s1 * h1 + s2 * h2)
-
-    # q = s x e1.
     q0 = s1 * e1[2] - s2 * e1[1]
     q1 = s2 * e1[0] - s0 * e1[2]
     q2 = s0 * e1[1] - s1 * e1[0]
-
-    v = inv * (q0 * d[0] + q1 * d[1] + q2 * d[2])
-    t = inv * (q0 * e2[0] + q1 * e2[1] + q2 * e2[2])
+    v = inv_det * (q0 * d[0] + q1 * d[1] + q2 * d[2])
+    t = inv_det * (q0 * e2[0] + q1 * e2[1] + q2 * e2[2])
 
     hit = (
-        det_ok
+        (jnp.abs(det) > epsilon)
         & (u >= 0.0)
         & (u <= 1.0)
         & (v >= 0.0)
         & (u + v <= 1.0)
         & (t > epsilon)
-        & active
     )
     return t, hit
 
 
-def _ray_lanes(rays_ref):
-    o = [rays_ref[i, :].reshape(1, -1) for i in range(3)]
-    d = [rays_ref[3 + i, :].reshape(1, -1) for i in range(3)]
-    return o, d
-
-
 def _anyhit_kernel(
-    rays_ref,
-    tris_ref,
-    active_ref,
-    tile_aabb_ref,
-    chunk_aabb_ref,
-    thresh_ref,
-    out_ref,
-    *,
-    epsilon,
+    rays_ref, tris_ref, chunk_box_ref, tile_box_ref, out_ref, *, epsilon, cfg
 ):
-    j = pl.program_id(1)
-    tile_t = tris_ref.shape[1]
+    o, d, inv_d, thresh = _ray_block(rays_ref)
+    num_tiles = tile_box_ref.shape[1]
+    cpt = cfg.chunks_per_tile
 
-    @pl.when(j == 0)
-    def _init():
-        out_ref[...] = jnp.zeros_like(out_ref)
+    def pending(blocked):
+        return blocked == 0
 
-    o, d = _ray_lanes(rays_ref)
-    thresh = thresh_ref[0, :].reshape(1, -1)
-    # Two-level culling (see _pallas_trace.py): skip the whole tile when no
-    # still-pending ray overlaps its AABB (also covers the all-blocked
-    # early exit: blocked rays are not pending), then per-T_SUB chunk.
-    pending = jnp.logical_not(out_ref[0, :].reshape(1, -1))
-    tile_box = [tile_aabb_ref[c, j] for c in range(6)]
-    tile_needed = jnp.any(_slab_overlap(o, d, tile_box, thresh) & pending)
+    def chunk_step(k, blocked, j):
+        g = j * cpt + k
 
-    @pl.when(tile_needed)
-    def _compute():
-        chunks_per_tile = tile_t // T_SUB
-        for chunk in range(chunks_per_tile):
-            sl = slice(chunk * T_SUB, (chunk + 1) * T_SUB)
-            # chunk_aabb_ref holds ALL chunks (one resident SMEM block);
-            # index globally — scalar dynamic loads are what SMEM is for.
-            g = j * chunks_per_tile + chunk
-            box = [chunk_aabb_ref[c, g] for c in range(6)]
-            # Slab-test the chunk's (Morton-tight) AABB: only rays whose
-            # still-unblocked segment overlaps the box need the 64 MT
-            # tests. Fully padded / masked-out chunks cost one reduce.
-            overlap = _slab_overlap(o, d, box, thresh) & jnp.logical_not(
-                out_ref[0, :].reshape(1, -1)
+        def test(blocked):
+            t, hit = _moeller_trumbore(
+                o, d, tris_ref, g * cfg.t_sub, cfg.t_sub, epsilon
+            )
+            hit = hit & (t < thresh[None, :])
+            return blocked | jnp.max(hit.astype(jnp.int32), axis=0)
+
+        need = _any(_slab(o, inv_d, chunk_box_ref, g, thresh) & pending(blocked))
+        return jax.lax.cond(need, test, lambda b: b, blocked)
+
+    def tile_step(carry):
+        j, blocked = carry
+
+        def sweep(blocked):
+            return jax.lax.fori_loop(
+                0, cpt, lambda k, b: chunk_step(k, b, j), blocked
             )
 
-            @pl.when(jnp.any(active_ref[0, sl] > 0) & jnp.any(overlap))
-            def _chunk(sl=sl):
-                t, hit = _mt_chunk(o, d, tris_ref, active_ref, sl, epsilon)
-                out_ref[0, :] = out_ref[0, :] | (hit & (t < thresh)).any(axis=0)
+        need = _any(_slab(o, inv_d, tile_box_ref, j, thresh) & pending(blocked))
+        return j + 1, jax.lax.cond(need, sweep, lambda b: b, blocked)
+
+    def more(carry):
+        # A block whose rays are all blocked or dead stops early.
+        j, blocked = carry
+        alive = pending(blocked) & (thresh > 0.0)
+        return (j < num_tiles) & _any(alive)
+
+    blocked = jnp.zeros(thresh.shape, jnp.int32)
+    _, blocked = jax.lax.while_loop(more, tile_step, (0, blocked))
+    out_ref[0, :] = blocked
 
 
 def _closest_kernel(
     rays_ref,
     tris_ref,
-    active_ref,
-    tile_aabb_ref,
-    chunk_aabb_ref,
-    num_rays_ref,
-    idx_out_ref,
-    t_out_ref,
+    chunk_box_ref,
+    tile_box_ref,
+    idx_ref,
+    t_ref,
     *,
     epsilon,
+    cfg,
 ):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    tile_t = tris_ref.shape[1]
+    # Row 6 holds the initial best t: +inf for real rays, -inf for padding
+    # (an empty slab interval, so padding never opens a box).
+    o, d, inv_d, best_t0 = _ray_block(rays_ref)
+    num_tiles = tile_box_ref.shape[1]
+    cpt = cfg.chunks_per_tile
+    lane = jax.lax.broadcasted_iota(jnp.int32, (cfg.t_sub, cfg.block_r), 0)
 
-    @pl.when(j == 0)
-    def _init():
-        idx_out_ref[...] = jnp.full_like(idx_out_ref, -1)
-        # Padded lanes start at -inf best-t: their slab interval is empty
-        # so they never veto the tile culling (zero-filled rays sit at the
-        # origin and overlap every central AABB otherwise), and
-        # `chunk_min <= -inf` keeps their index at -1. The ray count rides
-        # in SMEM and the init is computed from an in-kernel iota, so
-        # compilation depends only on the padded shape (no recompile when
-        # the exact ray count changes — commit 719964e) and no
-        # [1, rays_padded] operand is streamed per tile (the round-2 -> 3
-        # closest-hit regression this replaces, VERDICT r4 weak #2).
-        tile_r = t_out_ref.shape[1]
-        lane = i * tile_r + jax.lax.broadcasted_iota(
-            jnp.int32, (1, tile_r), 1
-        )
-        t_out_ref[...] = jnp.where(
-            lane < num_rays_ref[0, 0], jnp.inf, -jnp.inf
-        )
+    def chunk_step(k, best, j):
+        g = j * cpt + k
 
-    o, d = _ray_lanes(rays_ref)
-    # Two-level culling against the running best hit: a tile/chunk can
-    # only improve rays whose slab interval starts before their current
-    # best t, so later (Morton-ordered) geometry behind the first hits is
-    # skipped even for incoherent lattice-launched ray blocks.
-    tile_box = [tile_aabb_ref[c, j] for c in range(6)]
-    tile_needed = jnp.any(
-        _slab_overlap(o, d, tile_box, t_out_ref[0, :].reshape(1, -1))
-    )
-    chunks_per_tile = tile_t // T_SUB
+        def test(best):
+            best_t, best_i = best
+            start = g * cfg.t_sub
+            t, hit = _moeller_trumbore(o, d, tris_ref, start, cfg.t_sub, epsilon)
+            t = jnp.where(hit, t, jnp.inf)
+            chunk_t = jnp.min(t, axis=0)
+            # Lowest index among equal distances, as jnp.argmin.
+            chunk_i = (
+                jnp.min(jnp.where(t == chunk_t[None, :], lane, cfg.t_sub), axis=0)
+                + start
+            )
+            # An equal distance in a later chunk wins, as in the scan's
+            # combine step.
+            closer = (chunk_t <= best_t) & (chunk_t < jnp.inf)
+            return (
+                jnp.where(closer, chunk_t, best_t),
+                jnp.where(closer, chunk_i, best_i),
+            )
 
-    @pl.when(tile_needed)
-    def _tile():
-        for chunk in range(chunks_per_tile):
-            sl = slice(chunk * T_SUB, (chunk + 1) * T_SUB)
-            box = [
-                chunk_aabb_ref[c, j * chunks_per_tile + chunk]
-                for c in range(6)
-            ]
-            overlap = _slab_overlap(o, d, box, t_out_ref[0, :].reshape(1, -1))
+        need = _any(_slab(o, inv_d, chunk_box_ref, g, best[0]))
+        return jax.lax.cond(need, test, lambda b: b, best)
 
-            @pl.when(jnp.any(active_ref[0, sl] > 0) & jnp.any(overlap))
-            def _chunk(sl=sl, chunk=chunk):
-                t, hit = _mt_chunk(o, d, tris_ref, active_ref, sl, epsilon)
-                t = jnp.where(hit, t, jnp.inf)
-                chunk_min = jnp.min(t, axis=0)
-                chunk_arg = (
-                    jnp.argmin(t, axis=0).astype(jnp.int32)
-                    + j * tile_t
-                    + chunk * T_SUB
-                )
+    def tile_step(j, best):
+        def sweep(best):
+            return jax.lax.fori_loop(0, cpt, lambda k, b: chunk_step(k, b, j), best)
 
-                # Ties prefer the later chunk, matching the tiled pure-JAX
-                # combine (first_triangle_hit_by_ray): t is bit-identical,
-                # but since triangles are Morton-permuted before the kernel,
-                # an exact-t tie (shared edges, coplanar duplicates) resolves
-                # by sorted position and may report a different — equally
-                # valid — triangle index than the unsorted pure-JAX scan.
-                best_t = t_out_ref[0, :]
-                closer = chunk_min <= best_t
-                t_out_ref[0, :] = jnp.where(closer, chunk_min, best_t)
-                idx_out_ref[0, :] = jnp.where(
-                    closer & jnp.isfinite(chunk_min),
-                    chunk_arg,
-                    idx_out_ref[0, :],
-                )
+        need = _any(_slab(o, inv_d, tile_box_ref, j, best[0]))
+        return jax.lax.cond(need, sweep, lambda b: b, best)
+
+    best = (best_t0, jnp.full(best_t0.shape, -1, jnp.int32))
+    best_t, best_i = jax.lax.fori_loop(0, num_tiles, tile_step, best)
+    idx_ref[0, :] = best_i
+    t_ref[0, :] = best_t
 
 
 def _pad_to(x: Array, size: int, axis: int, value) -> Array:
@@ -367,126 +284,129 @@ def _pad_to(x: Array, size: int, axis: int, value) -> Array:
     return jnp.pad(x, widths, constant_values=value)
 
 
-def _prepare(
-    ray_origins: Float[Array, "num_rays 3"],
-    ray_directions: Float[Array, "num_rays 3"],
+def _prepare_triangles(
     triangle_vertices: Float[Array, "num_triangles 3 3"],
     active_triangles: Bool[Array, " num_triangles"] | None,
+    cfg: KernelConfig,
 ):
-    num_rays = ray_origins.shape[0]
+    """Morton-sorted SoA triangles plus chunk and tile boxes.
+
+    Returns ``(tris, chunk_boxes, tile_boxes, perm)`` where ``perm`` maps
+    sorted positions back to the caller's triangle indices.
+    """
     num_tris = triangle_vertices.shape[0]
-    rays_padded = pl.cdiv(num_rays, TILE_R) * TILE_R
-    # Triangles pad to T_SUB granularity (sublane chunks); only past one
-    # full tile do they round up to TILE_T multiples for the grid.
-    tris_padded = pl.cdiv(max(num_tris, 1), T_SUB) * T_SUB
-    if tris_padded > TILE_T:
-        tris_padded = pl.cdiv(tris_padded, TILE_T) * TILE_T
+    tile = cfg.t_sub * cfg.chunks_per_tile
+    tris_padded = pl.cdiv(max(num_tris, 1), tile) * tile
 
-    rays = jnp.concatenate((ray_origins, ray_directions), axis=-1).T  # [6, R]
-    rays = _pad_to(rays, rays_padded, 1, 0.0)
-
-    # Morton-sort so each T_SUB chunk is spatially tight, making the
-    # per-chunk AABB culling effective. ``perm`` maps sorted -> original
-    # triangle indices (closest-hit results are remapped through it).
-    perm = _morton_perm(triangle_vertices)
+    perm = morton_perm_points(triangle_vertices.mean(axis=1))
     triangle_vertices = jnp.take(triangle_vertices, perm, axis=0)
-
     v0 = triangle_vertices[:, 0, :]
     e1 = triangle_vertices[:, 1, :] - v0
     e2 = triangle_vertices[:, 2, :] - v0
-    tris = jnp.concatenate((v0, e1, e2), axis=-1).T  # [9, T]
-    tris = _pad_to(tris, tris_padded, 1, 0.0)
-
     if active_triangles is None:
-        active = jnp.ones((num_tris,), dtype=jnp.int32)
+        active = jnp.ones((num_tris,), dtype=bool)
     else:
-        active = jnp.take(active_triangles, perm).astype(jnp.int32)
-    active = _pad_to(active.reshape(1, -1), tris_padded, 1, 0)
+        active = jnp.take(active_triangles, perm)
+    # Zero edges give det == 0: an inactive triangle is never hit.
+    e1 = jnp.where(active[:, None], e1, 0.0)
+    e2 = jnp.where(active[:, None], e2, 0.0)
+    tris = jnp.concatenate((v0, e1, e2), axis=-1).T.astype(jnp.float32)
+    tris = _pad_to(tris, tris_padded, 1, 0.0)
+    active = _pad_to(active, tris_padded, 0, False)
 
-    aabb = _chunk_aabbs(tris, active)
-
-    return rays, tris, active, aabb, perm, num_rays, rays_padded, tris_padded
-
-
-def _smem_spec(block_shape, index_map):
-    if _HAS_PLTPU and not _interpret():
-        return pl.BlockSpec(block_shape, index_map, memory_space=pltpu.SMEM)
-    return pl.BlockSpec(block_shape, index_map)
+    chunk_boxes = _chunk_boxes(tris, active, cfg.t_sub)
+    tile_boxes = _tile_boxes(chunk_boxes, cfg.chunks_per_tile)
+    return tris, chunk_boxes, tile_boxes, perm
 
 
-def _tile_aabbs(chunk_aabb: Array, tile_t: int) -> Array:
-    """Fold per-chunk AABBs up to triangle-tile granularity: [8, num_tiles]."""
-    cpt = tile_t // T_SUB
-    return _pad_to(
-        jnp.concatenate(
-            (
-                chunk_aabb[0:3].reshape(3, -1, cpt).min(axis=-1),
-                chunk_aabb[3:6].reshape(3, -1, cpt).max(axis=-1),
-            ),
-            axis=0,
+def _prepare_rays(ray_origins, ray_directions, row6, pad_value, block_r):
+    """``[8, rays_padded]`` SoA rays: origin, direction, per-ray bound, zero."""
+    num_rays = ray_origins.shape[0]
+    rays_padded = pl.cdiv(max(num_rays, 1), block_r) * block_r
+    rays = jnp.concatenate(
+        (
+            ray_origins.T,
+            ray_directions.T,
+            row6[None, :],
+            jnp.zeros((1, num_rays), ray_origins.dtype),
         ),
-        8,
-        0,
-        0.0,
+        axis=0,
+    ).astype(jnp.float32)
+    rays = _pad_to(rays, rays_padded, 1, 0.0)
+    return rays.at[6, num_rays:].set(pad_value)
+
+
+def _specs(rays, tris, chunk_boxes, tile_boxes, block_r):
+    return [
+        pl.BlockSpec((8, block_r), lambda i: (0, i)),
+        pl.BlockSpec(tris.shape, lambda i: (0, 0)),
+        pl.BlockSpec(chunk_boxes.shape, lambda i: (0, 0)),
+        pl.BlockSpec(tile_boxes.shape, lambda i: (0, 0)),
+    ]
+
+
+def _compiler_params(cfg: KernelConfig):
+    return pl_triton.CompilerParams(
+        num_warps=cfg.num_warps, num_stages=cfg.num_stages
     )
 
 
-@functools.partial(jax.jit, static_argnames=("epsilon_static",))
-def _run_anyhit(rays, tris, active, aabb, thresh, epsilon_static):
-    rays_padded = rays.shape[1]
-    tris_padded = tris.shape[1]
-    tile_t = min(TILE_T, tris_padded)
-    grid = (rays_padded // TILE_R, tris_padded // tile_t)
-    tile_aabb = _tile_aabbs(aabb, tile_t)
+def _check_compilable(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        msg = (
+            "The Pallas ray-casting kernels compile only for an NVIDIA GPU, "
+            f"not for {jax.default_backend()!r}; use the 'jax' backend there, "
+            "or ask for the interpreter explicitly with "
+            "set_backend('pallas', interpret=True)."
+        )
+        raise RuntimeError(msg)
 
+
+def _epsilon(epsilon) -> float:
+    if epsilon is None:
+        return 10.0 * float(jnp.finfo(jnp.float32).eps)
+    return float(epsilon)
+
+
+@functools.partial(jax.jit, static_argnames=("epsilon", "cfg", "interpret"))
+def _run_anyhit(rays, tris, chunk_boxes, tile_boxes, *, epsilon, cfg, interpret):
     out = pl.pallas_call(
-        functools.partial(_anyhit_kernel, epsilon=epsilon_static),
-        out_shape=jax.ShapeDtypeStruct((1, rays_padded), jnp.bool_),
-        grid=grid,
-        in_specs=[
-            _vmem_spec((6, TILE_R), lambda i, j: (0, i)),
-            _vmem_spec((9, tile_t), lambda i, j: (0, j)),
-            _vmem_spec((1, tile_t), lambda i, j: (0, j)),
-            _smem_spec((8, tris_padded // tile_t), lambda i, j: (0, 0)),
-            _smem_spec((8, tris_padded // T_SUB), lambda i, j: (0, 0)),
-            _vmem_spec((1, TILE_R), lambda i, j: (0, i)),
-        ],
-        out_specs=_vmem_spec((1, TILE_R), lambda i, j: (0, i)),
-        interpret=_interpret(),
-    )(rays, tris, active, tile_aabb, aabb, thresh)
-    return out
+        functools.partial(_anyhit_kernel, epsilon=epsilon, cfg=cfg),
+        out_shape=jax.ShapeDtypeStruct((1, rays.shape[1]), jnp.int32),
+        grid=(rays.shape[1] // cfg.block_r,),
+        in_specs=_specs(rays, tris, chunk_boxes, tile_boxes, cfg.block_r),
+        out_specs=pl.BlockSpec((1, cfg.block_r), lambda i: (0, i)),
+        compiler_params=_compiler_params(cfg),
+        interpret=interpret,
+        name="ray_intersect_any_triangle",
+    )(rays, tris, chunk_boxes, tile_boxes)
+    return out[0] > 0
 
 
-@functools.partial(jax.jit, static_argnames=("epsilon_static",))
-def _run_closest(rays, tris, active, aabb, num_rays, epsilon_static):
-    rays_padded = rays.shape[1]
-    tris_padded = tris.shape[1]
-    tile_t = min(TILE_T, tris_padded)
-    grid = (rays_padded // TILE_R, tris_padded // tile_t)
-    tile_aabb = _tile_aabbs(aabb, tile_t)
-
+@functools.partial(jax.jit, static_argnames=("epsilon", "cfg", "interpret"))
+def _run_closest(rays, tris, chunk_boxes, tile_boxes, *, epsilon, cfg, interpret):
+    spec = pl.BlockSpec((1, cfg.block_r), lambda i: (0, i))
     idx, t = pl.pallas_call(
-        functools.partial(_closest_kernel, epsilon=epsilon_static),
+        functools.partial(_closest_kernel, epsilon=epsilon, cfg=cfg),
         out_shape=(
-            jax.ShapeDtypeStruct((1, rays_padded), jnp.int32),
-            jax.ShapeDtypeStruct((1, rays_padded), jnp.float32),
+            jax.ShapeDtypeStruct((1, rays.shape[1]), jnp.int32),
+            jax.ShapeDtypeStruct((1, rays.shape[1]), jnp.float32),
         ),
-        grid=grid,
-        in_specs=[
-            _vmem_spec((6, TILE_R), lambda i, j: (0, i)),
-            _vmem_spec((9, tile_t), lambda i, j: (0, j)),
-            _vmem_spec((1, tile_t), lambda i, j: (0, j)),
-            _smem_spec((8, tris_padded // tile_t), lambda i, j: (0, 0)),
-            _smem_spec((8, tris_padded // T_SUB), lambda i, j: (0, 0)),
-            _smem_spec((1, 1), lambda i, j: (0, 0)),
-        ],
-        out_specs=(
-            _vmem_spec((1, TILE_R), lambda i, j: (0, i)),
-            _vmem_spec((1, TILE_R), lambda i, j: (0, i)),
-        ),
-        interpret=_interpret(),
-    )(rays, tris, active, tile_aabb, aabb, num_rays)
-    return idx, t
+        grid=(rays.shape[1] // cfg.block_r,),
+        in_specs=_specs(rays, tris, chunk_boxes, tile_boxes, cfg.block_r),
+        out_specs=(spec, spec),
+        compiler_params=_compiler_params(cfg),
+        interpret=interpret,
+        name="first_triangle_hit_by_ray",
+    )(rays, tris, chunk_boxes, tile_boxes)
+    return idx[0], t[0]
+
+
+def _flatten_rays(ray_origins, ray_directions):
+    batch = jnp.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
+    ray_origins = jnp.broadcast_to(ray_origins, (*batch, 3)).reshape(-1, 3)
+    ray_directions = jnp.broadcast_to(ray_directions, (*batch, 3)).reshape(-1, 3)
+    return batch, ray_origins, ray_directions
 
 
 def pallas_ray_intersect_any_triangle(
@@ -497,37 +417,36 @@ def pallas_ray_intersect_any_triangle(
     *,
     hit_threshold: Float[Array, "*#batch"] | float = 1.0,
     epsilon: Float[Array, ""] | float | None = None,
+    interpret: bool = False,
+    config: KernelConfig = DEFAULT_CONFIG,
 ) -> Bool[Array, " *batch"]:
     """Any-hit occlusion test: does each ray hit anything before ``t = thr``.
 
     Same contract as :func:`differt_tpu.rt.ray_intersect_any_triangle` with
-    ``hit_threshold = 1 - hit_tol``.
+    ``hit_threshold = 1 - hit_tol``. ``hit_threshold`` may be per ray; a
+    negative value marks a ray whose answer does not matter (it reports
+    "not blocked" and costs no triangle tests).
     """
-    batch = jnp.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
-    ray_origins = jnp.broadcast_to(ray_origins, (*batch, 3)).reshape(-1, 3)
-    ray_directions = jnp.broadcast_to(ray_directions, (*batch, 3)).reshape(-1, 3)
-
-    if epsilon is None:
-        epsilon = 10.0 * float(jnp.finfo(jnp.float32).eps)
-    else:
-        epsilon = float(epsilon)
-
-    rays, tris, active, aabb, _, num_rays, rays_padded, _ = _prepare(
-        ray_origins, ray_directions, triangle_vertices, active_triangles
-    )
-    # hit_threshold may be per-ray ([*batch], e.g. negative to deactivate
-    # rays whose result does not matter) or a scalar.
+    _check_compilable(interpret)
+    batch, ray_origins, ray_directions = _flatten_rays(ray_origins, ray_directions)
+    num_rays = ray_origins.shape[0]
     thresh = jnp.broadcast_to(
         jnp.asarray(hit_threshold, dtype=jnp.float32), batch
     ).reshape(-1)
-    # Padded lanes get a negative threshold: their slab interval is empty,
-    # so they never count as "pending" in the chunk-culling predicate
-    # (zero-filled rays sit at the origin and would otherwise overlap
-    # every chunk AABB near the scene center, defeating the culling).
-    thresh = _pad_to(thresh.reshape(1, -1), rays_padded, 1, -1.0)
-
-    out = _run_anyhit(rays, tris, active, aabb, thresh, epsilon)
-    return out[0, :num_rays].reshape(batch)
+    rays = _prepare_rays(ray_origins, ray_directions, thresh, -1.0, config.block_r)
+    tris, chunk_boxes, tile_boxes, _ = _prepare_triangles(
+        triangle_vertices, active_triangles, config
+    )
+    out = _run_anyhit(
+        rays,
+        tris,
+        chunk_boxes,
+        tile_boxes,
+        epsilon=_epsilon(epsilon),
+        cfg=config,
+        interpret=interpret,
+    )
+    return out[:num_rays].reshape(batch)
 
 
 def pallas_first_triangle_hit_by_ray(
@@ -537,31 +456,36 @@ def pallas_first_triangle_hit_by_ray(
     active_triangles: Bool[Array, " num_triangles"] | None = None,
     *,
     epsilon: Float[Array, ""] | float | None = None,
+    interpret: bool = False,
+    config: KernelConfig = DEFAULT_CONFIG,
 ) -> tuple[Int[Array, " *batch"], Float[Array, " *batch"]]:
-    """Closest-hit query: ``(index, t)`` of the first triangle hit (-1/inf)."""
-    batch = jnp.broadcast_shapes(ray_origins.shape[:-1], ray_directions.shape[:-1])
-    ray_origins = jnp.broadcast_to(ray_origins, (*batch, 3)).reshape(-1, 3)
-    ray_directions = jnp.broadcast_to(ray_directions, (*batch, 3)).reshape(-1, 3)
+    """Closest-hit query: ``(index, t)`` of the first triangle hit (-1/inf).
 
-    if epsilon is None:
-        epsilon = 10.0 * float(jnp.finfo(jnp.float32).eps)
-    else:
-        epsilon = float(epsilon)
-
-    rays, tris, active, aabb, perm, num_rays, rays_padded, _ = _prepare(
-        ray_origins, ray_directions, triangle_vertices, active_triangles
+    Same contract as :func:`differt_tpu.rt.first_triangle_hit_by_ray`, up to
+    the choice among triangles hit at exactly the same distance.
+    """
+    _check_compilable(interpret)
+    batch, ray_origins, ray_directions = _flatten_rays(ray_origins, ray_directions)
+    num_rays = ray_origins.shape[0]
+    init_t = jnp.full((num_rays,), jnp.inf, jnp.float32)
+    rays = _prepare_rays(
+        ray_origins, ray_directions, init_t, -jnp.inf, config.block_r
+    )
+    tris, chunk_boxes, tile_boxes, perm = _prepare_triangles(
+        triangle_vertices, active_triangles, config
     )
     idx, t = _run_closest(
         rays,
         tris,
-        active,
-        aabb,
-        jnp.full((1, 1), num_rays, dtype=jnp.int32),
-        epsilon,
+        chunk_boxes,
+        tile_boxes,
+        epsilon=_epsilon(epsilon),
+        cfg=config,
+        interpret=interpret,
     )
-    idx = idx[0, :num_rays].reshape(batch)
-    t = t[0, :num_rays].reshape(batch)
-    finite = jnp.isfinite(t)
-    # The kernel reports indices into the Morton-sorted order; map back.
+    idx = idx[:num_rays].reshape(batch)
+    t = t[:num_rays].reshape(batch)
+    hit = idx >= 0
+    # The kernel reports positions in the Morton-sorted order; map back.
     idx = jnp.take(perm, idx.clip(min=0))
-    return jnp.where(finite, idx, -1), jnp.where(finite, t, jnp.inf)
+    return jnp.where(hit, idx, -1), jnp.where(hit, t, jnp.inf)

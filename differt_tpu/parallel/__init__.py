@@ -1,13 +1,13 @@
-"""Multi-chip / multi-host scaling via ``jax.sharding``.
+"""Multi-device / multi-host scaling via ``jax.sharding``.
 
 The reference is strictly single-device (SURVEY.md section 2); this module
-is the TPU-native scaling layer: scene geometry is replicated in every
-chip's HBM, while the embarrassingly-parallel axes — RX grid points, TX
+is the scaling layer: scene geometry is replicated in every device's
+memory, while the embarrassingly-parallel axes — RX grid points, TX
 positions, and path candidates — are sharded across a device mesh. All
 compute inside the solvers is batched elementwise over those axes, so XLA
 partitions the jitted computation with zero communication on the forward
 pass; gradients of replicated parameters (materials, geometry) are
-all-reduced automatically by XLA over ICI during the backward pass.
+all-reduced automatically by XLA during the backward pass.
 """
 
 from ._sharding import (

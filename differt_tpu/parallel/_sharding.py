@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jaxtyping import Array, ArrayLike, Float
-
+from .. import treekit as tk
+from .._typing import Array, ArrayLike, Float
 from ..coverage import received_power
 from ..geometry import Scene, TracedPaths, generate_path_candidates
 from ..rt._solvers import trace_path_candidates as _trace_path_candidates
@@ -106,6 +106,40 @@ def sharded_trace_paths(
     return paths
 
 
+@tk.filter_jit
+def _sharded_power(
+    scene, rx_flat, eta_r, conductivity, thickness, frequency, mesh, order, coherent
+):
+    """``[num_tx, num_rx_padded]`` power with the RX axis split over ``mesh``.
+
+    Each device traces its own RX shard against the whole scene, which the
+    per-device function closes over (replicated). shard_map makes that
+    split explicit, so the Pallas ray-cast kernels, which XLA cannot
+    partition, run on per-device shapes instead of being replicated.
+    """
+
+    def local(rx):
+        s = tk.tree_at(lambda sc: sc.receivers, scene, rx)
+        paths = s.trace_paths(order=order)
+        power = received_power(
+            paths,
+            s,
+            frequency,
+            eta_r=eta_r,
+            conductivity=conductivity,
+            thickness=thickness,
+            coherent=coherent,
+        )
+        return power.reshape(-1, rx.shape[0])
+
+    axis = mesh.axis_names[0]
+    # The kernels' outputs carry no varying-axes annotation, so the check
+    # is off; every value but the RX shard is replicated.
+    return jax.shard_map(
+        local, mesh=mesh, in_specs=P(axis), out_specs=P(None, axis), check_vma=False
+    )(rx_flat)
+
+
 def sharded_power_map(
     scene: Scene,
     frequency: Float[ArrayLike, ""],
@@ -155,23 +189,19 @@ def sharded_power_map(
         )
     rx_flat = shard_along(rx_flat, mesh, axis=0)
 
-    import differt_tpu.treekit as tk
-
-    scene = replicate(scene, mesh)
-    scene = tk.tree_at(lambda s: s.receivers, scene, rx_flat)
-
-    paths = scene.trace_paths(order=order)
-    power = received_power(
-        paths,
-        scene,
-        frequency,
-        eta_r=eta_r,
-        conductivity=conductivity,
-        thickness=thickness,
-        coherent=coherent,
-    )
     tx_batch = scene.transmitters.shape[:-1]
-    power = power.reshape(*tx_batch, -1)[..., :num_rx]
+    power = _sharded_power(
+        scene,
+        rx_flat,
+        jnp.asarray(eta_r),
+        jnp.asarray(conductivity),
+        None if thickness is None else jnp.asarray(thickness),
+        frequency,
+        mesh,
+        order,
+        coherent,
+    )
+    power = power[..., :num_rx]
     return power.reshape(*tx_batch, *rx_batch)
 
 
@@ -189,7 +219,7 @@ def training_step(
     """One SPMD gradient-descent step on material permittivity.
 
     The RX axis is sharded; ``eta_r`` is replicated, so XLA all-reduces its
-    gradient over ICI as part of the backward pass (the "config 4" pattern:
+    gradient as part of the backward pass (the "config 4" pattern:
     differentiable coverage map -> gradient descent on permittivity).
     """
 
@@ -226,7 +256,7 @@ def placement_training_step(
 
     The BASELINE config-5 pattern: the RX axis is sharded across the
     device mesh; TX positions and ``eta_r`` are replicated, so XLA
-    all-reduces their gradients over ICI as part of the backward pass.
+    all-reduces their gradients as part of the backward pass.
     Gradients flow into the TX coordinates through the image method (path
     geometry depends on TX) and the EM chain (departure directions,
     spreading, phase); path-validity masks are boolean and act as frozen
@@ -265,7 +295,7 @@ def placement_training_step(
 
 def _tile_amplitude_parts(
     scene_tile, tx, eta_r, rx_tile, cand, itypes, valid,
-    frequency, conductivity, thickness, megakernel, batch_size,
+    frequency, conductivity, thickness, batch_size,
     smoothing_factor=None,
 ):
     """(real, imag) of one (RX tile, candidate chunk) amplitude sum.
@@ -288,7 +318,6 @@ def _tile_amplitude_parts(
         thickness,
         None,
         True,
-        megakernel,
         batch_size,
         smoothing_factor,
     )
@@ -297,7 +326,7 @@ def _tile_amplitude_parts(
 
 def _streamed_tile_grad(
     scene_tile, tx, eta_r, rx_tile, cand, itypes, valid,
-    frequency, conductivity, thickness, g_re, g_im, megakernel, batch_size,
+    frequency, conductivity, thickness, g_re, g_im, batch_size,
     smoothing_factor=None,
 ):
     """VJP of one tile's amplitude w.r.t. (tx, eta_r), jitted once.
@@ -310,7 +339,7 @@ def _streamed_tile_grad(
     def f(tx_, eta_):
         return _tile_amplitude_parts(
             scene_tile, tx_, eta_, rx_tile, cand, itypes, valid,
-            frequency, conductivity, thickness, megakernel, batch_size,
+            frequency, conductivity, thickness, batch_size,
             smoothing_factor,
         )
 
@@ -430,7 +459,6 @@ def _streamed_forward(
     thickness,
     num_rx,
     rx_chunk,
-    megakernel,
     batch_size,
     smoothing_factor=None,
 ):
@@ -452,7 +480,6 @@ def _streamed_forward(
             thickness,
             None,
             True,
-            megakernel,
             batch_size,
             smoothing_factor,
         )
@@ -490,7 +517,6 @@ def streamed_placement_loss(
     candidate_chunk: int = 256,
     rx_chunk: int = 8192,
     target_power: Float[Array, "..."] | None = None,
-    megakernel: bool | None = None,
     batch_size: int | None = 512,
     return_db_map: bool = False,
     smoothing_factor: Float[ArrayLike, ""] | None = None,
@@ -542,7 +568,6 @@ def streamed_placement_loss(
         thickness,
         num_rx,
         rx_chunk,
-        megakernel,
         batch_size,
         None if smoothing_factor is None else jnp.asarray(smoothing_factor),
     )
@@ -572,7 +597,6 @@ def streamed_placement_step(
     target_power: Float[Array, "..."] | None = None,
     tx_learning_rate: float = 1e-1,
     eta_learning_rate: float = 1e-2,
-    megakernel: bool | None = None,
     batch_size: int | None = 512,
     smoothing_factor: Float[ArrayLike, ""] | None = None,
 ) -> tuple[
@@ -600,7 +624,7 @@ def streamed_placement_step(
     Peak memory is O(candidate_chunk x rx_chunk) regardless of grid size.
     With a device ``mesh``, every RX tile is sharded across it while TX
     and materials stay replicated, so XLA all-reduces their per-tile
-    gradients over ICI inside the jitted tile step.
+    gradients inside the jitted tile step.
     """
     global _TILE_GRAD
     if _TILE_GRAD is None:
@@ -643,7 +667,6 @@ def streamed_placement_step(
         thickness,
         num_rx,
         rx_chunk,
-        megakernel,
         batch_size,
         smoothing_factor,
     )
@@ -676,7 +699,6 @@ def streamed_placement_step(
             thickness,
             g_re[:, sl],
             g_im[:, sl],
-            megakernel,
             batch_size,
             smoothing_factor,
         )

@@ -3,9 +3,9 @@
 Reference parity: ``differt.plotting`` (differt/src/differt/plotting/) —
 the same ``draw_*`` primitive set with backend dispatch, a process-global
 default backend, per-backend default kwargs, and a ``reuse`` context that
-accumulates several draws into one figure. The vispy backend is omitted
-(no GPU canvas on TPU hosts); plotly and matplotlib cover interactive and
-static use.
+accumulates several draws into one figure. The vispy backend is optional
+(it needs a canvas, which headless hosts lack); plotly and matplotlib
+cover interactive and static use.
 """
 
 from ._core import (

@@ -4,9 +4,8 @@ Reference parity: differt/src/differt/plotting/_core.py (vispy branches).
 The "figure" object for this backend is a ``vispy.scene.SceneCanvas`` with
 a single 3D (turntable-camera) view; the :func:`reuse` context and the
 ``figure=`` kwarg carry the canvas between calls exactly like plotly
-figures. Requires the optional ``vispy`` package (GPU canvas — not
-installed in headless TPU environments, where plotly/matplotlib are the
-defaults).
+figures. Requires the optional ``vispy`` package (a GPU canvas — not
+available on headless hosts, where plotly/matplotlib are the defaults).
 """
 
 from typing import Any

@@ -16,7 +16,7 @@ from typing import Any, Generic, Literal, TypeVar
 from differt_tpu import treekit as eqx
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float, Int, Shaped
+from .._typing import Array, ArrayLike, Bool, Float, Int, Shaped
 
 from ..em import (
     InteractionType,
@@ -231,7 +231,7 @@ def _transmit_field(
     """Initial (theta, phi) field components for the TX polarization.
 
     Components are carried as two scalar arrays rather than a trailing
-    ``[..., 2]`` axis, which pads poorly onto TPU vector lanes.
+    ``[..., 2]`` axis, as everywhere in the EM chain.
     """
     theta_hat, phi_hat = spherical_basis(k_first)
     lanes = theta_hat.shape[:-1]

@@ -1,7 +1,7 @@
 """Ray tracing: kernels, path solvers, and launchers.
 
 API parity with ``differt.rt`` (differt/src/differt/rt/__init__.py), but all
-accelerated paths are TPU-native (Pallas / XLA) instead of Warp CUDA.
+accelerated paths run inside XLA (Pallas / XLA) instead of Warp CUDA.
 """
 
 from ..geometry._candidates import (

@@ -20,7 +20,7 @@ a solver (em/_utd.py:225-302 is ``NotImplementedError``). Here:
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Complex, Float, Int
+from .._typing import Array, ArrayLike, Complex, Float, Int
 
 from .. import treekit as tk
 from ..geometry._paths import TracedPaths
@@ -230,11 +230,11 @@ def diffraction_amplitudes(
     reflection coefficients at the grazing angles to the o- and n-faces);
     otherwise faces are PEC.
 
-    Implementation is structure-of-arrays for TPU coverage-map batch sizes:
+    Implementation is structure-of-arrays for coverage-map batch sizes:
     all per-edge quantities are precomposed into one ``[num_edges, C]``
-    table fetched with a single one-hot MXU matmul, and all vector math
-    runs on component tuples of batch-shaped arrays (see
-    ``docs/architecture.md``, "TPU layout lessons").
+    table fetched with a single gather, and all vector math runs on
+    component tuples of batch-shaped arrays (see ``docs/architecture.md``,
+    "Layout choices encoded in the code").
     """
     from ..em._constants import c, epsilon_0
     from ..em._fresnel import reflection_coefficients

@@ -7,7 +7,7 @@ as well as reflection (planes), unlike the image method.
 
 The reference delegates this to the external ``fpt-jax`` package
 (differt/src/differt/geometry/_solver_fermat.py:11-182); here the minimizer
-is implemented in-house, TPU-first:
+is implemented in-house, device-first:
 
 - The objective ``L(x) = sum_i |p_{i+1}(x) - p_i(x)|`` is convex in the
   object-local coordinates ``x`` (each ``p`` is affine in ``x``), so a
@@ -24,7 +24,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float
+from .._typing import Array, ArrayLike, Float
 
 from ..geometry._vectors import orthogonal_basis
 
@@ -36,7 +36,9 @@ def _path_points(
     object_origins: Float[Array, "num_objects 3"],
     object_vectors: Float[Array, "num_objects num_dims 3"],
 ) -> Float[Array, "num_objects 3"]:
-    return object_origins + jnp.einsum("nd,ndk->nk", x, object_vectors)
+    return object_origins + jnp.einsum(
+        "nd,ndk->nk", x, object_vectors, precision=jax.lax.Precision.HIGHEST
+    )
 
 
 def _total_length(

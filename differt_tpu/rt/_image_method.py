@@ -11,7 +11,7 @@ configurations surface as inf/NaN vertices, which the solver layer masks.
 import chex
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float
+from .._typing import Array, ArrayLike, Bool, Float
 
 from ..utils import smoothing_function
 

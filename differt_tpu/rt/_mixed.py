@@ -33,7 +33,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Complex, Float, Int
+from .._typing import Array, ArrayLike, Complex, Float, Int
 
 from .. import treekit as tk
 from ..em._interaction_type import InteractionType

@@ -6,7 +6,7 @@ CUDA kernel with per-cell ``atomic_or`` of a path hash. Here the same
 computation is expressed as pure XLA: a ``lax.scan`` over bounces, a
 vectorized receiver-plane crossing test, and a bit-planed scatter-max that
 emulates the atomic OR (OR of a set == per-bit any == per-bit max), which
-XLA lowers to a single deterministic scatter on TPU.
+XLA lowers to a single deterministic scatter.
 
 Each grid cell accumulates the OR of 32-bit hashes of the primitive-index
 sequences of all ray paths crossing it: cells with equal values share the
@@ -23,7 +23,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Float, Int
+from .._typing import Array, ArrayLike, Float, Int
 
 from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 

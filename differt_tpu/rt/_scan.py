@@ -10,16 +10,17 @@ Reference parity (same contracts, different tiling design — the reference
 uses a ``fori_loop`` over dynamic slices plus a remainder epilogue):
 ``ray_intersect_any_triangle`` (_utils.py:1325-1537),
 ``first_triangle_hit_by_ray`` (_utils.py:1775-1961), and
-``triangles_visible_from_vertex`` (_utils.py:1540-1772). The Pallas TPU
-kernels in :mod:`differt_tpu.ops` implement the same contracts; these
-pure-JAX versions are the portable fallback and the correctness oracles.
+``triangles_visible_from_vertex`` (_utils.py:1540-1772). The Pallas
+kernels in :mod:`differt_tpu.ops` implement the first two contracts on a
+GPU; these pure-JAX versions are the portable backend and the
+correctness references.
 """
 
 from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float, Int
+from .._typing import Array, ArrayLike, Bool, Float, Int
 
 from ..geometry._lattice import fibonacci_lattice, viewing_frustum
 from ..utils import smoothing_function

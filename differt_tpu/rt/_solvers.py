@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from differt_tpu.treekit import AbstractVar
-from jaxtyping import Array, ArrayLike, Bool, Float, Int
+from .._typing import Array, ArrayLike, Bool, Float, Int
 
 from ..geometry._candidates import (
     SizedIterator,
@@ -282,7 +282,6 @@ def trace_path_candidates(
     smoothing_factor: Float[ArrayLike, ""] | None = None,
     confidence_threshold: Float[ArrayLike, ""] = 0.5,
     batch_size: int | None = 512,
-    megakernel: bool | None = None,
 ) -> TracedPaths:
     """Trace and validate exact specular paths for a batch of candidates.
 
@@ -290,30 +289,10 @@ def trace_path_candidates(
     mirrors -> image method -> five validity checks (inside-triangle,
     same-side-of-mirror, blocked-by-scene, too-short-segment, finiteness),
     each with a hard boolean or sigmoid-smoothed differentiable variant.
-
-    On TPU, the hard-mask triangle case dispatches to the fused Pallas
-    trace megakernel (``ops/_pallas_trace.py``) — identical results with
-    the whole pipeline in one kernel; ``megakernel=False`` forces the XLA
-    pipeline (``None`` = auto by backend).
     """
     if min_len is None:
         dtype = jnp.result_type(mesh.vertices, tx_vertices, rx_vertices)
         min_len = 10.0 * jnp.finfo(dtype).eps
-
-    # Static (Python float) copies of the tolerances for the Pallas
-    # megakernel: under jit even jnp constants are tracers, so capture
-    # before converting. A None marks a traced value (forces the XLA path).
-    def _static(x):
-        if x is None or isinstance(x, jax.core.Tracer):
-            return None
-        try:
-            return float(x)
-        except (TypeError, jax.errors.ConcretizationTypeError):
-            return None
-
-    epsilon_static = _static(epsilon)
-    hit_tol_static = _static(hit_tol)
-    min_len_static = _static(min_len)
     min_len = jnp.asarray(min_len)
 
     num_tx = tx_vertices.shape[0]
@@ -343,53 +322,6 @@ def trace_path_candidates(
     stride = 2 if mesh.assume_quads else 1
     mirror_vertices = triangle_vertices[..., ::stride, 0, :]
     mirror_normals = jnp.take(mesh.normals, path_candidates[..., ::stride], axis=0)
-
-    if megakernel is None:
-        from ..ops import get_backend
-
-        megakernel = (
-            get_backend() == "pallas"
-            and smoothing_factor is None
-            and order >= 1
-            and num_candidates > 0
-            and min_len_static is not None
-            and (epsilon is None or epsilon_static is not None)
-            and (hit_tol is None or hit_tol_static is not None)
-        )
-    if megakernel:
-        from ..ops._pallas_trace import pallas_trace_specular
-
-        f32_eps = float(jnp.finfo(jnp.float32).eps)
-        verts_mk, mask_mk = pallas_trace_specular(
-            tx_vertices,
-            rx_vertices,
-            mirror_vertices,
-            mirror_normals,
-            triangle_vertices,
-            mesh.triangle_vertices,
-            mesh.mask,
-            order=order,
-            epsilon=epsilon_static if epsilon_static is not None else 10.0 * f32_eps,
-            hit_tol=hit_tol_static if hit_tol_static is not None else 100.0 * f32_eps,
-            min_len=min_len_static,
-        )
-        # [tx, cand, rx, ...] -> [tx, rx, cand, ...]
-        full_paths = jnp.swapaxes(verts_mk, 1, 2)
-        mask = jnp.swapaxes(mask_mk, 1, 2)
-        if active_rays is not None:
-            mask = mask & active_rays
-        return _assemble_traced_paths(
-            full_paths,
-            mask,
-            path_candidates,
-            interaction_types,
-            k,
-            num_tx,
-            num_rx,
-            num_candidates,
-            order,
-            confidence_threshold,
-        )
 
     if num_candidates == 0:
         dtype = jnp.result_type(tx_vertices, rx_vertices, mesh.vertices)
@@ -623,8 +555,6 @@ class ExhaustivePathTracer(AbstractPathTracer):
     """Whether to drop candidates touching masked-out primitives up front."""
     chunk_size: int | None = None
     """Default chunk size for chunked iteration."""
-    megakernel: bool | None = None
-    """Force the fused Pallas trace kernel on/off (None = auto on TPU)."""
 
     def generate_path_candidates(
         self,
@@ -761,7 +691,6 @@ class ExhaustivePathTracer(AbstractPathTracer):
             smoothing_factor=self.smoothing_factor,
             confidence_threshold=self.confidence_threshold,
             batch_size=self.batch_size,
-            megakernel=self.megakernel,
         )
 
 
@@ -789,8 +718,6 @@ class HybridPathTracer(AbstractPathTracer):
     """Triangle tile size for occlusion checks."""
     chunk_size: int | None = None
     """Default chunk size for chunked iteration."""
-    megakernel: bool | None = None
-    """Force the fused Pallas trace kernel on/off (None = auto on TPU)."""
 
     def _visibility(
         self, scene: "Scene"
@@ -903,7 +830,6 @@ class HybridPathTracer(AbstractPathTracer):
             smoothing_factor=self.smoothing_factor,
             confidence_threshold=self.confidence_threshold,
             batch_size=self.batch_size,
-            megakernel=self.megakernel,
         )
 
 

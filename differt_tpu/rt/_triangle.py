@@ -7,7 +7,7 @@ sigmoid-smoothed differentiable variant of fully-eucap2024.
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, ArrayLike, Bool, Float
+from .._typing import Array, ArrayLike, Bool, Float
 
 from ..utils import smoothing_function
 
@@ -29,7 +29,7 @@ def ray_intersect_triangle(
     [0, 1] (min-combined), keeping the test differentiable.
 
     ``epsilon`` defaults to ``10 * eps(dtype)`` (dtype-derived, per the
-    reference convention so float32-TPU and float64-CPU agree after scaling).
+    reference convention so float32 and float64 runs agree after scaling).
 
     Examples:
         >>> import jax.numpy as jnp

@@ -2,12 +2,12 @@
 
 Measures sharded coverage-map throughput (paths/s) at 1, 2, 4, ... devices
 and reports scaling efficiency. Runs on whatever devices are available —
-real TPU chips on a pod slice, or virtual CPU devices for validation:
+the GPUs of one host, or virtual CPU devices for validation:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python scaling.py
 
-On a multi-host pod, call ``jax.distributed.initialize()`` first (pass
+On several hosts, call ``jax.distributed.initialize()`` first (pass
 ``--distributed``); each host runs the same program SPMD.
 """
 
@@ -18,38 +18,16 @@ import os
 import jax
 import jax.numpy as jnp
 
-# Some accelerator plugins ignore JAX_PLATFORMS from the environment; the
-# config update makes the CPU request stick (required for the virtual
-# multi-device mesh: XLA_FLAGS=--xla_force_host_platform_device_count=N).
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
-
-BRUXELLES = "/root/reference/docs/source/notebooks/bruxelles.obj"
+from differt_tpu.compile_cache import enable_compilation_cache
 
 
 def _city_scene(num_tx: int, grid: int):
-    """Bruxelles (14.2k triangles) with a TX grid and a city-wide RX grid."""
-    import pathlib
-
+    """The procedural city (about 17k triangles) with TX and RX grids."""
     import differt_tpu.treekit as tk
     from differt_tpu.geometry import Scene
+    from differt_tpu.scenes import urban_scene
 
-    cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu):
-        if pathlib.Path(BRUXELLES).is_file():
-            from differt_tpu.io import load_obj
-
-            mesh = load_obj(BRUXELLES)
-        else:  # fallback when the reference assets are absent
-            from differt_tpu.scenes import urban_scene
-
-            mesh = urban_scene(24, 24).mesh
-    device = jax.devices()[0]
-    mesh = jax.tree_util.tree_map(
-        lambda x: jax.device_put(x, device) if isinstance(x, jax.Array) else x,
-        mesh,
-    )
+    mesh = urban_scene(24, 24).mesh
     (min_x, min_y, _), (max_x, max_y, _) = mesh.bounding_box
     side = int(num_tx**0.5)
     assert side * side == num_tx, "num_tx must be a square"
@@ -106,7 +84,7 @@ def run_config5(
 ) -> dict:
     """BASELINE config 5 at city scale on the available device(s).
 
-    16 TX x 1M RX (1024 x 1024 grid) on the bruxelles city mesh (14.2k
+    16 TX x 1M RX (1024 x 1024 grid) on the procedural city (about 17k
     triangles), ORDER-3 reflections (the spec'd order — BASELINE.md row
     5), with the candidate axis streamed as a decoded shard (the full
     order-3 space is ~2.9e12 candidates; a shard is one strided slice of
@@ -134,11 +112,10 @@ def run_config5(
     tx = scene.transmitters.reshape(-1, 3)
     num_triangles = int(scene.mesh.num_triangles)
     candidates = _strided_candidates(num_triangles, order, shard)
-    # Per-material tables matching the mesh (bruxelles: BRICK walls,
-    # CONCRETE ground — ITU-class values at 2.4 GHz). An undersized table
-    # NaN-fills the out-of-range gathers and poisons the coherent sums.
-    eta = jnp.array([3.91, 5.24])
-    sigma = jnp.array([0.024, 0.123])
+    # One concrete material (ITU-class values at 2.4 GHz), matching the
+    # mesh's single material table.
+    eta = jnp.array([5.24])
+    sigma = jnp.array([0.123])
 
     def run(freq):
         out = power_map_chunked(
@@ -150,7 +127,7 @@ def run_config5(
             candidate_chunk=shard,
             rx_chunk=rx_chunk,
         )
-        return float(jnp.sum(jnp.where(jnp.isfinite(out), out, 0.0)))
+        return jax.block_until_ready(out)
 
     run(2.4e9)  # Warmup: compile everything outside the timed run.
     start = time.perf_counter()
@@ -169,8 +146,8 @@ def run_config5(
     # The order-1 shard must include the mesh's dominant reflectors (the
     # ground triangles — by far the largest by area) or nearly every pixel
     # sits at the -300 dB floor and the TX gradient drowns in float32
-    # resolution (round-4's tx_grad_norm = 1.5e-5 pathology). Striding
-    # alone misses them: bruxelles' ground is its last two triangles.
+    # resolution. Striding alone misses them: the city's ground is its
+    # last two triangles.
     import numpy as np
 
     tv = np.asarray(jax.device_get(scene.mesh.triangle_vertices))
@@ -190,10 +167,9 @@ def run_config5(
         _strided_candidates(num_triangles, 2, grad_shard),
     ]
 
-    # The tile VJP holds the traced-path residuals ([tx, rx, cand, L, 3]
-    # with (8, 128)-padded trailing dims) for rx_chunk x grad_shard at
-    # once: at 16 TX x 2 orders x 256 candidates an 8192-RX tile runs out
-    # of HBM, so the gradient pass streams narrower tiles.
+    # The tile VJP holds the traced-path residuals ([tx, rx, cand, L, 3])
+    # for rx_chunk x grad_shard at once, so the gradient pass streams
+    # narrower tiles than the forward.
     grad_rx_chunk = min(rx_chunk, 2048)
 
     def grad_step(freq):
@@ -214,17 +190,13 @@ def run_config5(
             eta_learning_rate=1.0,
         )
 
-    warm = grad_step(2.4e9)  # Warmup: compile outside the timed step.
-    jax.block_until_ready(warm[0])
-    float(jnp.sum(warm[0]))
+    jax.block_until_ready(grad_step(2.4e9))  # Warmup: compile outside the timing.
     start = time.perf_counter()
-    new_tx, new_eta, loss = grad_step(2.4e9 + 1e3)
-    jax.block_until_ready(new_tx)
-    float(jnp.sum(new_tx))
+    new_tx, new_eta, loss = jax.block_until_ready(grad_step(2.4e9 + 1e3))
     grad_elapsed = time.perf_counter() - start
     grad_paths = num_tx * grid * grid * len(grad_orders) * grad_shard
 
-    # Chip-side gradient anchors (VERDICT r4 #7) on a strided RX
+    # Device-side gradient anchors on a strided RX
     # subsample of the SAME grid. Three measurements, because a naive TX
     # finite difference CANNOT anchor a hard-mask ray tracer at city
     # scale: moving the TX flips path-validity masks at a high density,
@@ -235,7 +207,7 @@ def run_config5(
     #    independent direct jax.grad of the identical loss on the
     #    subsample — pins the streamed VJP accumulation (the machinery
     #    the artifact's tx_grad_norm comes from) against autodiff ground
-    #    truth on the chip.
+    #    truth on the device.
     # 2. eta_fd: central difference on the PERMITTIVITY, which moves no
     #    geometry and flips no masks — the loss is smooth in eta, so FD
     #    must match the streamed material gradient. This anchors the
@@ -257,7 +229,7 @@ def run_config5(
     scene_sub = tk.tree_at(lambda s: s.receivers, scene, rx_sub)
     # The direct jax.grad comparison materializes the whole
     # [tx, rx, cand] pipeline (plus its VJP) — stride it further so the
-    # residuals stay in HBM at 16 TX.
+    # residuals stay in device memory at 16 TX.
     rx_direct = rx_flat[:: max(1, rx_flat.shape[0] // 1024)]
 
     sub_tx, sub_eta, _ = streamed_placement_step(
@@ -304,7 +276,6 @@ def run_config5(
                     None,
                     None,
                     True,
-                    None,
                     512,
                 )
                 total = part if total is None else total + part
@@ -394,7 +365,7 @@ def run_config5(
             "smooth_directional": g_norm,
             "note": (
                 "fd - smooth = hard-mask validity-jump drift (not an "
-                "implementation error; see docs/performance.md)"
+                "implementation error)"
             ),
         }
         fd_check["ok"] = bool(cos > 0.99 and eta_rel < 0.1)
@@ -403,9 +374,7 @@ def run_config5(
 
     result = {
         "config5": {
-            "scene": __import__("pathlib").Path(BRUXELLES).name
-            if __import__("pathlib").Path(BRUXELLES).is_file()
-            else "urban_scene(24,24)",
+            "scene": "urban_scene(24,24)",
             "num_triangles": num_triangles,
             "num_tx": num_tx,
             "num_rx": grid * grid,
@@ -474,6 +443,7 @@ def main() -> None:
         help="Call jax.distributed.initialize() (multi-host pods).",
     )
     args = parser.parse_args()
+    enable_compilation_cache()
 
     if args.distributed:
         jax.distributed.initialize()
@@ -553,7 +523,7 @@ def main() -> None:
 
     # Virtual host-platform devices all share the same physical CPU cores:
     # throughput cannot scale there (the run validates sharding correctness
-    # + compilation only); real scaling numbers require real chips.
+    # + compilation only); real scaling numbers require real devices.
     virtual = (
         jax.default_backend() == "cpu"
         and "host_platform_device_count" in os.environ.get("XLA_FLAGS", "")
@@ -565,7 +535,7 @@ def main() -> None:
         "virtual_devices": virtual,
         "note": (
             "virtual devices share one physical CPU; efficiency is "
-            "meaningful on real chips only"
+            "meaningful on real devices only"
         )
         if virtual
         else None,

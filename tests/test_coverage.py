@@ -291,3 +291,19 @@ def test_undersized_material_table_clamps_not_nan() -> None:
     )
     assert bool(jnp.all(jnp.isfinite(out)))
     assert bool(jnp.any(out > 0.0))
+
+
+
+def test_sp_frame_gradient_finite_at_normal_incidence() -> None:
+    # At normal incidence the plane of incidence is undefined (a zero cross
+    # product), which masked-out dummy paths hit against walls facing them.
+    # The gradient through that frame must stay finite: a nan there poisons
+    # the whole coherent sum of a coverage tile's TX gradient.
+    from differt_tpu.utils import sp_directions3
+
+    def frame_sum(x):
+        k = (x, 0.0 * x, 0.0 * x)
+        (e_i_s, e_i_p), (_, e_r_p) = sp_directions3(k, k, (1.0, 0.0, 0.0))
+        return sum(e_i_s) + sum(e_i_p) + sum(e_r_p)
+
+    assert bool(jnp.isfinite(jax.grad(frame_sum)(1.0)))

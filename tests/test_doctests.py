@@ -46,15 +46,15 @@ MODULE_NAMES = [
     "differt_tpu.io._ply",
     "differt_tpu.io._xml",
     "differt_tpu.io._sionna",
-    "differt_tpu.ops._mxu_mt",
-    "differt_tpu.ops._pallas_rt",
+    "differt_tpu.geometry._morton",
+    "differt_tpu._typing",
     "differt_tpu.plotting._core",
     "differt_tpu.plugins.deepmimo",
 ]
 # Not doctested: io.__main__ (CLI entry point, covered by test_io.py),
 # plotting._vispy (vispy not installable here; covered by skip-marked
-# tests), ops._pallas_trace (kernel-only module, exercised end-to-end by
-# test_pallas_trace.py and the bench smoke matrix).
+# tests), ops._pallas_rt (kernel-only module, covered by test_pallas.py and
+# test_pallas_backend.py, and compiled on the GPU by chip_smoke.py).
 
 
 @pytest.mark.parametrize("name", MODULE_NAMES)

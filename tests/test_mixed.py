@@ -78,7 +78,7 @@ class TestMixedCandidates:
 class TestMixedGeometry:
     def test_pure_reflection_matches_exhaustive(self, corridor_scene: Scene) -> None:
         mixed = MixedPathTracer().trace_paths(corridor_scene, [R])
-        exact = corridor_scene.trace_paths(order=1, megakernel=False)
+        exact = corridor_scene.trace_paths(order=1)
         assert int(mixed.mask.sum()) == int(exact.mask.sum())
         got = np.sort(
             np.asarray(mixed.vertices[np.asarray(mixed.mask)])[:, 1], axis=0
@@ -189,7 +189,7 @@ class TestMixedAmplitudes:
             eta_r=ETA_R,
             conductivity=CONDUCTIVITY,
         )
-        exact = corridor_scene.trace_paths(order=1, megakernel=False)
+        exact = corridor_scene.trace_paths(order=1)
         a_ref = complex_amplitudes(
             exact, corridor_scene, FREQUENCY, eta_r=ETA_R, conductivity=CONDUCTIVITY
         )

@@ -329,7 +329,7 @@ class TestSmoothedStreamedGradient:
 
     With a smoothing_factor the loss is smooth in the TX position even
     through path EXISTENCE (the hard-mask validity-jump drift documented
-    in docs/performance.md), so a central difference of the streamed loss
+    in PERF.md), so a central difference of the streamed loss
     must now agree with the streamed gradient. (The own-mirror exclusion
     in the smoothed blockage makes this possible at order >= 1 at all:
     the reference's formulation lets every bounce count its own mirrors

@@ -8,7 +8,7 @@ hits y = +-1 at x = 1/8, 3/8, 5/8, 7/8.
 
 import jax
 import jax.numpy as jnp
-from jaxtyping import Array, Float, PRNGKeyArray
+from differt_tpu._typing import Array, Float, PRNGKeyArray
 
 from differt_tpu import treekit as tk
 
